@@ -1,6 +1,7 @@
 # tpuar build/test entry points (the reference's 42-line Makefile analog:
-# here the only native artifact is the golden codec, auto-built on first
-# use; these targets exist for explicit builds and CI-style runs).
+# the native libraries — the golden codec and the CPU and CUDA builds of
+# the coder op — are auto-built on first use; these targets exist for
+# explicit builds and CI-style runs).
 
 PY ?= python
 
@@ -9,7 +10,7 @@ PY ?= python
 all: native
 
 native:
-	$(PY) -c "from gpuar_tpu import native; native.load(); print('native golden codec built')"
+	$(PY) -c "from gpuar_tpu import native; native.load(); native.coder_library('cpu'); print('golden codec and CPU coder op built')"
 
 test:
 	$(PY) -m pytest tests/ -q

@@ -13,7 +13,7 @@ and records a JSON artifact.  Random data also stresses the super-batch
 bookkeeping at >2**32 byte offsets and the resume walk over >4 GiB of
 packets.
 
-Usage: python benchmarks/bigfile.py [--gib 4.6] [--backend tpu|host]
+Usage: python benchmarks/bigfile.py [--gib 4.6] [--backend device|host]
                                     [--json benchmarks/bigfile_results.json]
 """
 
@@ -60,7 +60,7 @@ def cli(args_list, **kw):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--gib", type=float, default=4.6)
-    ap.add_argument("--backend", choices=["tpu", "host"], default="tpu")
+    ap.add_argument("--backend", choices=["device", "host"], default="device")
     ap.add_argument("--json", default=None)
     ap.add_argument("--tmp", default=None,
                     help="working dir (needs ~3x the file size)")

@@ -5,8 +5,8 @@ physically serialise inside the codec section, so the measured
 ``wall_efficiency`` can never reach the >=0.8 BASELINE bar no matter how
 good the distributed design is — r3 had to report a contention-corrected
 number instead.  This control removes the contention without removing the
-thing under test: a fake backend that *sleeps* the measured per-batch
-device time (bytes / measured chip GB/s) instead of burning CPU, while the
+thing under test: a fake backend that *sleeps* the per-batch
+device time (bytes / an assumed device GB/s) instead of burning CPU, while the
 real ``DistributedCompressor`` machinery — jax.distributed collectives,
 barriers, size all-gather, offset scan, parallel splice at offsets, real
 file I/O — runs unchanged.  N sleeping ranks on one core do not contend,

@@ -1,11 +1,10 @@
 """Randomized end-to-end soak: random file sizes and content mixes through
-the real compressor backends, cross-checked between TPU and host paths.
+the real compressor backends, cross-checked between the device and host
+paths.
 
-Iteration 0 (after the size-edge cases) embeds an adversarial-underflow
-packet (>MAX_RUN_BITS pending run) in the corpus, so every soak proves
-the kernel error-flag -> host-fixup path on the actual hardware, not
-just in interpreter tests; the flag firing is recorded in the JSON
-summary (--json).
+The first iteration after the size-edge cases embeds an
+adversarial-underflow packet (a ~133-bit pending run) in the corpus, so
+every soak codes that stream on the device.
 
 Usage: python benchmarks/soak.py [--iters 8] [--host-only] [--json OUT]
 """
@@ -55,37 +54,17 @@ def main():
     ap.add_argument("--host-only", action="store_true")
     ap.add_argument("--seed", type=int, default=0xF00D)
     ap.add_argument("--json", default=None,
-                    help="write a run summary (sizes, fixup evidence) here")
+                    help="write a run summary here")
     args = ap.parse_args()
 
     from gpuar_tpu.pipeline import HostCompressor
 
     host = HostCompressor()
-    tpu = None
+    dev = None
     if not args.host_only:
         from gpuar_tpu.parallel.runner import TPUCompressor
 
-        tpu = TPUCompressor()
-
-    # Count kernel error-flag fixups (the >MAX_RUN_BITS underflow path)
-    # actually exercised during the soak — both the stride path
-    # (fixup_errors) and the compacted-transfer path (_host_reencode).
-    from gpuar_tpu.ops import pallas_encode
-    from gpuar_tpu.parallel import mesh
-    fixups = {"lanes": 0}
-    orig_fixup = pallas_encode.fixup_errors
-    orig_reenc = mesh._host_reencode
-
-    def counting_fixup(packets, lengths, errs, data, sizes):
-        fixups["lanes"] += int(np.count_nonzero(errs))
-        return orig_fixup(packets, lengths, errs, data, sizes)
-
-    def counting_reencode(row):
-        fixups["lanes"] += 1
-        return orig_reenc(row)
-
-    pallas_encode.fixup_errors = counting_fixup
-    mesh._host_reencode = counting_reencode
+        dev = TPUCompressor()
 
     rng = np.random.default_rng(args.seed)
     edge_sizes = [0, 1, 8191, 8192, 8193, 16 * 8192, 8192 * 1024 + 5]
@@ -100,14 +79,10 @@ def main():
             with open(src, "wb") as f:
                 blob = make_corpus(rng, size)
                 if it == len(edge_sizes):
-                    # Embed a packet engineered to overflow the in-kernel
-                    # underflow-run budget: forces the error-flag ->
-                    # golden-codec fixup path on real hardware.
-                    sys.path.insert(0, os.path.join(os.path.dirname(
-                        os.path.dirname(os.path.abspath(__file__))), "tests"))
-                    from test_pallas_encode import \
-                        _adversarial_underflow_packet
-                    adv = _adversarial_underflow_packet().tobytes()
+                    # Embed the adversarial-underflow packet.
+                    from benchmarks.corpora import \
+                        adversarial_underflow_packet
+                    adv = adversarial_underflow_packet().tobytes()
                     blob = adv + blob[len(adv):] if len(blob) >= len(adv) \
                         else adv
                 f.write(blob)
@@ -119,26 +94,27 @@ def main():
             host.decompress(gh, out)
             assert md5(out) == ref, f"iter {it}: host round-trip"
 
-            if tpu is not None:
+            if dev is not None:
                 gt = os.path.join(td, "t.gip")
-                tpu.compress(src, gt)
-                assert md5(gt) == md5(gh), f"iter {it}: TPU/host .gip mismatch"
+                dev.compress(src, gt)
+                assert md5(gt) == md5(gh), \
+                    f"iter {it}: device/host .gip mismatch"
                 out2 = os.path.join(td, "t.out")
-                tpu.decompress(gh, out2)
-                assert md5(out2) == ref, f"iter {it}: TPU decode of host file"
-            print(f"iter {it}: {size} bytes OK "
-                  f"(fixup lanes so far: {fixups['lanes']})", flush=True)
+                dev.decompress(gh, out2)
+                assert md5(out2) == ref, \
+                    f"iter {it}: device decode of host file"
+            print(f"iter {it}: {size} bytes OK", flush=True)
             summary.append({"iter": it, "bytes": size, "ok": True})
-    # --debug decode compiled on the real chip (round-2 VERDICT item 6):
-    # a clean archive must pass the flag-gated kernel, and an archive with
+    # --debug decode on the device: a clean archive must pass the debug
+    # decode, and an archive with
     # one corrupt-but-well-framed packet must raise ContainerError (the
     # reference's -D_DEBUG parity; release mode decodes silent garbage).
     debug_result = None
-    if tpu is not None:
+    if dev is not None:
         from gpuar_tpu import container
         from gpuar_tpu.parallel.runner import TPUCompressor
 
-        tpu_dbg = TPUCompressor(debug=True)
+        dev_dbg = TPUCompressor(debug=True)
         with tempfile.TemporaryDirectory() as td:
             src = os.path.join(td, "in.bin")
             with open(src, "wb") as f:
@@ -146,7 +122,7 @@ def main():
             gip = os.path.join(td, "c.gip")
             host.compress(src, gip)
             out = os.path.join(td, "clean.out")
-            tpu_dbg.decompress(gip, out)
+            dev_dbg.decompress(gip, out)
             clean_ok = md5(out) == md5(src)
 
             # Corrupt packet 2's bitstream body (framing intact): noise
@@ -162,7 +138,7 @@ def main():
             bad = os.path.join(td, "bad.gip")
             open(bad, "wb").write(bytes(blob))
             try:
-                tpu_dbg.decompress(bad, os.path.join(td, "bad.out"))
+                dev_dbg.decompress(bad, os.path.join(td, "bad.out"))
                 corrupt_raised = False
             except container.ContainerError as e:
                 corrupt_raised = True
@@ -170,22 +146,21 @@ def main():
                       flush=True)
             # Release-mode parity: the same archive decodes (to garbage)
             # without --debug, like the reference.
-            tpu.decompress(bad, os.path.join(td, "rel.out"))
+            dev.decompress(bad, os.path.join(td, "rel.out"))
             debug_result = {"clean_ok": bool(clean_ok),
                             "corrupt_raised": bool(corrupt_raised),
                             "release_decodes_garbage": True}
             assert clean_ok and corrupt_raised, debug_result
-            print("debug decode on hardware: clean passes, corrupt raises",
+            print("debug decode on the device: clean passes, corrupt raises",
                   flush=True)
 
-    print(f"soak PASSED (kernel fixup lanes exercised: {fixups['lanes']})")
+    print("soak PASSED")
     if args.json:
         import json
         with open(args.json, "w") as f:
-            json.dump({"iters": summary, "fixup_lanes": fixups["lanes"],
-                       "debug_decode": debug_result,
-                       "backend": "host-only" if tpu is None else
-                       "tpu+host"}, f, indent=1)
+            json.dump({"iters": summary, "debug_decode": debug_result,
+                       "backend": "host-only" if dev is None else
+                       "device+host"}, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""gpuar_tpu: a TPU-native block-parallel adaptive arithmetic coding codec.
+"""gpuar_tpu: a block-parallel adaptive arithmetic coding codec for GPUs.
 
-A from-scratch rebuild of the capabilities of jiahansu/GPUAR for TPU
-hardware: files are split into independent 8192-byte packets, thousands of
-packets are coded batch-parallel per chip by JAX/Pallas kernels (the serial
-coder runs per batch lane on the VPU), and batches shard data-parallel over
-a device mesh.  The .gip container is interchangeable with the reference.
+A from-scratch rebuild of the capabilities of jiahansu/GPUAR: files are
+split into independent 8192-byte packets, one GPU thread codes one packet
+with its own adaptive model (a CUDA kernel called from JAX through
+``jax.ffi``), and batches shard data-parallel over the local GPUs.  The
+.gip container is interchangeable with the reference.
 """
 
 __version__ = "0.1.0"
@@ -15,34 +15,21 @@ from gpuar_tpu.utils.stats import CompressionInfo, ProgressMonitor  # noqa: F401
 
 
 def _pick_backend(host: bool, threads: int, debug: bool = False):
-    """Same backend policy as the CLI: accelerator by default, host on
-    request or as fallback (reference src/main.cpp:142-146); --debug
-    semantics require the accelerator decode path."""
-    if not host:
-        try:
-            from gpuar_tpu.parallel.runner import TPUCompressor
-            return TPUCompressor(debug=debug)
-        except Exception as e:
-            if debug:
-                raise
-            # A library caller must not silently get ~45 MB/s host coding
-            # when they asked for the accelerator; mirror the CLI's
-            # "Attention: accelerator unavailable" notice (cli.py) as a
-            # warning carrying the init error.
-            import warnings
-            warnings.warn(
-                f"accelerator unavailable ({e!r}); falling back to the "
-                "host codec — pass host=True to silence this",
-                RuntimeWarning, stacklevel=3)
-    from gpuar_tpu.pipeline import HostCompressor
-    return HostCompressor(threads=threads)
+    """Same backend policy as the CLI: the GPU by default, the host codec
+    on request (``host=True``).  Without a GPU the device backend raises
+    NoGPUError; it never falls back to the host codec by itself."""
+    if host:
+        from gpuar_tpu.pipeline import HostCompressor
+        return HostCompressor(threads=threads)
+    from gpuar_tpu.parallel.runner import TPUCompressor
+    return TPUCompressor(debug=debug)
 
 
 def compress(src, dst, *, host: bool = False, threads: int = 1,
              resume: bool = False, monitor=None) -> "CompressionInfo":
     """Compress file ``src`` into .gip archive ``dst`` (library mirror of
-    the CLI ``c`` verb).  ``host=True`` forces the native host codec;
-    otherwise the accelerator is used when available."""
+    the CLI ``c`` verb).  ``host=True`` runs the native host codec;
+    otherwise the GPU, and NoGPUError when there is none."""
     return _pick_backend(host, threads).compress(
         src, dst, monitor=monitor, resume=resume)
 
@@ -50,8 +37,8 @@ def compress(src, dst, *, host: bool = False, threads: int = 1,
 def decompress(src, dst, *, host: bool = False, threads: int = 1,
                debug: bool = False, monitor=None) -> "CompressionInfo":
     """Decompress .gip archive ``src`` into file ``dst`` (CLI ``d``).
-    ``debug=True`` enables the kernel's corrupt-packet detection and
-    requires the accelerator path (raises if it is unavailable)."""
+    ``debug=True`` enables the device decode's corrupt-packet detection
+    (device path only)."""
     return _pick_backend(host, threads, debug=debug).decompress(
         src, dst, monitor=monitor)
 

@@ -4,8 +4,10 @@ Same verbs, flags, and defaults as the reference CLI (jiahansu/GPUAR
 src/main.cpp:85-96): ``tpuar c|d --in=F --out=G [--host] [--device=N]``.
 Compress is the default mode when ``d`` is absent (src/main.cpp:102); the
 default output name is ``output.gip`` (:130).  ``--host`` selects the native
-serial backend; otherwise the batched TPU backend runs on all local devices
-(``--device`` pins one).
+serial backend; otherwise the batched device backend runs on all local GPUs
+(``--device`` pins one).  Without a GPU the device path refuses to start
+(unless JAX_PLATFORMS=cpu selects the CPU on purpose); it never falls back
+to the host codec by itself.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from gpuar_tpu.utils.stats import ProgressMonitor
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpuar",
-        description="TPU-native block-parallel adaptive arithmetic coder",
+        description="Block-parallel adaptive arithmetic coder for GPUs",
     )
     p.add_argument("mode", nargs="?", default="c", choices=["c", "d", "v"],
                    help="c: compress (default), d: decompress, v: verify "
@@ -30,17 +32,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", action="store_true",
                    help="run the codec on the host CPU (native golden path)")
     p.add_argument("--device", type=int, default=None,
-                   help="pin one accelerator device by index; default: all")
+                   help="pin one GPU by index; default: all local GPUs "
+                        "(with --multihost: the card this process takes, "
+                        "default its process id)")
     p.add_argument("--batch-packets", type=int, default=None,
                    help="packets per super-batch (bounds memory)")
     p.add_argument("--threads", type=int, default=1,
-                   help="host-codec worker threads (--host / fallback "
-                        "path, and v --deep; 0 = all cores).  Packets are "
+                   help="host-codec worker threads (--host, and v --deep; "
+                        "0 = all cores).  Packets are "
                         "independent, so any value yields an identical "
                         "archive/verdict")
     p.add_argument("--multihost", action="store_true",
-                   help="pod-slice mode: every process codes its file range "
-                        "and splices at gathered offsets (shared filesystem)")
+                   help="multi-process mode: every process codes its file "
+                        "range on one card and splices at gathered offsets "
+                        "(shared filesystem)")
+    p.add_argument("--coordinator", default=None,
+                   help="with --multihost: coordinator host:port (default "
+                        "$JAX_COORDINATOR_ADDRESS)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="with --multihost: number of processes")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="with --multihost: this process's id")
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted compression: complete "
                         "packets already in the output are kept")
@@ -69,46 +81,33 @@ def make_compressor(args):
     if args.host:
         from gpuar_tpu.pipeline import HostCompressor
         return HostCompressor(threads=args.threads, **kwargs)
+    device = args.device
     if args.multihost:
         from gpuar_tpu.parallel import distributed
-        from gpuar_tpu.parallel.runner import TPUCompressor
         try:
-            # On TPU pods the coordinator/world is discovered from the
-            # environment; elsewhere set JAX's distributed env vars.
-            distributed.initialize()
-        except Exception as e:
-            print(f"Attention: jax.distributed unavailable ({e}).",
-                  file=sys.stderr)
-        if distributed.process_info()[1] == 1:
-            print("Attention: --multihost with a single process; if other "
-                  "uncoordinated processes write the same output it will be "
-                  "corrupted.", file=sys.stderr)
-        return distributed.DistributedCompressor(
-            backend=TPUCompressor(device_index=args.device, **kwargs))
-    try:
-        from gpuar_tpu.parallel.runner import TPUCompressor
-        return TPUCompressor(device_index=args.device, **kwargs)
-    except Exception as e:  # no usable accelerator: fall back like main.cpp:142
-        if kwargs.get("debug"):
-            # The user explicitly asked for corrupt-packet detection; a
-            # silent downgrade to the host path would hand them the
-            # reference's decode-to-garbage semantics instead.  Fail hard
-            # (mirrors the --debug/--host parser.error).
+            distributed.initialize(args.coordinator, args.num_processes,
+                                   args.process_id, local_device_id=device)
+        except Exception as e:  # the CLI boundary: report and stop
             raise SystemExit(
-                f"Error: --debug requires the accelerator decode path, "
-                f"which is unavailable ({e}); rerun without --debug to "
-                f"accept the host fallback."
-            )
-        print(f"Attention: accelerator unavailable ({e}); "
-              "executing codec on host.", file=sys.stderr)
-        from gpuar_tpu.pipeline import HostCompressor
-        return HostCompressor(threads=args.threads, **kwargs)
+                f"Error: --multihost could not start jax.distributed "
+                f"({e}); give --coordinator, --num-processes and "
+                f"--process-id") from e
+        device = None  # the process already sees only its own card
+    from gpuar_tpu.parallel.runner import NoGPUError, TPUCompressor
+    try:
+        backend = TPUCompressor(device_index=device, **kwargs)
+    except (NoGPUError, ValueError) as e:
+        raise SystemExit(f"Error: {e}") from e
+    if args.multihost:
+        from gpuar_tpu.parallel import distributed
+        return distributed.DistributedCompressor(backend=backend)
+    return backend
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    # Silent flag interactions would let a user believe a pod-slice or
+    # Silent flag interactions would let a user believe a multi-process or
     # resumable run happened when it did not: reject them up front.
     if args.host and args.multihost:
         parser.error("--host and --multihost are mutually exclusive")
@@ -117,7 +116,7 @@ def main(argv=None) -> int:
     if args.debug and args.mode != "d":
         parser.error("--debug only applies to decompression (mode 'd')")
     if args.debug and args.host:
-        parser.error("--debug requires the accelerator decode path "
+        parser.error("--debug requires the device decode path "
                      "(drop --host)")
     if args.deep and args.mode != "v":
         parser.error("--deep only applies to verification (mode 'v')")

@@ -1,14 +1,20 @@
-"""Build + load the native golden codec (ctypes).
+"""Build + load the native libraries (ctypes): the golden host codec and
+the two builds of the device coder op.
 
-The shared library is compiled on first use with g++ and cached next to the
-source, keyed by a hash of the source text, so edits trigger a rebuild.
+Every library is compiled from the committed sources at first use and
+cached in ``_build/`` under a tag that hashes the sources, the command
+line, the compiler's version and, for ``-march=native`` builds, the ISA
+the compiler targets on this host: a library built on one machine is
+never loaded on another whose CPU or toolchain differs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -21,34 +27,115 @@ from gpuar_tpu.config import (
     UNCOMPRESSED_PACKET_SIZE,
 )
 
-_SRC = Path(__file__).with_name("golden.cpp")
-_BUILD_DIR = Path(__file__).with_name("_build")
+_DIR = Path(__file__).parent
+_SRC = _DIR / "golden.cpp"
+_BUILD_DIR = _DIR / "_build"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_CODER: dict[str, ctypes.CDLL] = {}
+
+GOLDEN_CMD = ("g++", "-std=c++17", "-O3", "-march=native", "-fPIC",
+              "-shared")
 
 
-def _build() -> Path:
-    src_text = _SRC.read_bytes()
-    tag = hashlib.sha256(src_text).hexdigest()[:16]
-    out = _BUILD_DIR / f"libtpuar_golden_{tag}.so"
+@functools.lru_cache(maxsize=None)
+def _toolchain_identity(compiler: str, native_isa: bool) -> bytes:
+    """The compiler's version and, with ``native_isa``, the ISA macros
+    ``-march=native`` defines on this host."""
+    ident = subprocess.run([compiler, "--version"], check=True,
+                           capture_output=True).stdout
+    if native_isa:
+        ident += subprocess.run(
+            [compiler, "-march=native", "-E", "-dM", "-x", "c++",
+             os.devnull], check=True, capture_output=True).stdout
+    return ident
+
+
+def build_library(name: str, units, cmd, headers=()) -> Path:
+    """Compile ``units`` with ``cmd`` (compiler, then flags) into
+    ``_build/lib{name}_{tag}.so`` unless that build exists; ``headers``
+    join the sources in the tag.  Concurrent builders each write their own
+    temporary file and the last rename wins, so a reader never sees a
+    partial library."""
+    key = hashlib.sha256()
+    for path in (*units, *headers):
+        key.update(Path(path).read_bytes())
+    key.update("\0".join(cmd).encode())
+    key.update(_toolchain_identity(cmd[0], "-march=native" in cmd))
+    out = _BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(".so.tmp")
-    cmd = [
-        "g++", "-std=c++17", "-O3", "-march=native", "-fPIC", "-shared",
-        str(_SRC), "-o", str(tmp),
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    r = subprocess.run([*cmd, *map(str, units), "-o", str(tmp)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"building {out.name} failed:\n"
+                           f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def coder_library(platform: str) -> ctypes.CDLL:
+    """The device coder op's library for JAX platform ``platform``:
+    ``"gpu"`` builds ``coder_cuda.cu`` with nvcc for sm_90a, ``"cpu"``
+    builds ``coder_cpu.cc`` with g++.  Both compile the one coder in
+    ``coder.h``."""
+    import jax.ffi
+
+    with _LOCK:
+        if platform not in _CODER:
+            inc = f"-I{jax.ffi.include_dir()}"
+            headers = (_DIR / "coder.h", _DIR / "coder_ffi.h")
+            if platform == "gpu":
+                path = build_library(
+                    "gip_coder_cuda", [_DIR / "coder_cuda.cu"],
+                    [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                     inc], headers)
+            elif platform == "cpu":
+                path = build_library(
+                    "gip_coder_cpu", [_DIR / "coder_cpu.cc"],
+                    ["g++", "-std=c++17", "-O3", "-fPIC", "-shared", inc],
+                    headers)
+            else:
+                raise ValueError(f"no coder build for platform {platform!r}")
+            lib = ctypes.CDLL(str(path))
+            if platform == "gpu":
+                lib.gip_device_geometry.argtypes = [
+                    ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_int)]
+                lib.gip_device_geometry.restype = ctypes.c_int
+            _CODER[platform] = lib
+        return _CODER[platform]
+
+
+def cuda_device_geometry(device: int) -> tuple[int, int]:
+    """(SM count, packets one SM holds at once) of CUDA device
+    ``device``, from the coder library's occupancy query."""
+    sm, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    err = coder_library("gpu").gip_device_geometry(
+        device, ctypes.byref(sm), ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f"CUDA device {device}: cudaError {err}")
+    return sm.value, per_sm.value
 
 
 def load() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(build_library(
+                "tpuar_golden", [_SRC], GOLDEN_CMD)))
             u8p = ctypes.POINTER(ctypes.c_uint8)
             i32p = ctypes.POINTER(ctypes.c_int32)
             lib.tg_encode_packet.argtypes = [u8p, ctypes.c_int, u8p]
@@ -115,7 +202,7 @@ def decode_packet_delta(packet: bytes) -> tuple[bytes, int]:
 
     A delta beyond +16 bits of lookahead marks a corrupt well-framed
     packet (golden.cpp tg_decode_packet_delta — the host mirror of the
-    kernel's overrun flag, pallas_decode.check_debug_flags)."""
+    device coder's overrun flag, coder_op.check_debug_flags)."""
     lib = load()
     src = np.frombuffer(packet, dtype=np.uint8)
     raw = packet[2] | (packet[3] << 8)

@@ -35,8 +35,7 @@ struct Model {
   uint16_t cum[kModelSize];
   uint32_t cumprob;
 #ifndef TG_NO_HULL
-  // Hull window (the host mirror of the Pallas kernels' symbol-hull
-  // windowed model passes): rows 1..live are maintained; rows i > live
+  // Hull window (windowed model passes): rows 1..live are maintained; rows i > live
   // are never written, and because every coded symbol is < live their
   // TRUE value is always i + nsym (nsym = cumprob - 256) — recoverable
   // in closed form without reading them.  live only grows (sticky), in
@@ -100,7 +99,7 @@ struct Model {
   // the adaptive update cum[i] += (i > sym) is identical to
   // cum[i] += (cum[i] > unscaled) — one auto-vectorised compare pass
   // yields the symbol (a count) AND applies the update.  The same trick
-  // as the Pallas decode kernel's fused compare-read.  Does NOT touch
+  // as a fused compare-read.  Does NOT touch
   // cumprob; the caller increments it after using the pre-update bounds
   // (cum[sym] is unchanged; pre-update cum[sym+1] = new value - 1).
 #ifdef TG_USE_MASKPOP
@@ -332,8 +331,7 @@ inline int straddle_count(uint32_t lo, uint32_t hi) {
 // narrower blocked table pass measured SLOWER — the reduce latency is
 // width-independent; benchmarks/PROBES_r3.md).  Packets are independent
 // coders, so stepping K of them in lockstep gives the out-of-order window
-// K overlapping chains — the host mirror of the Pallas decode kernel's
-// interleaved lane-streams.  K is capped by register/ROB pressure; the
+// K overlapping chains.  K is capped by register/ROB pressure; the
 // adopted value is measured in PROBES_r3.md.
 
 struct Enc {
@@ -518,7 +516,7 @@ int tg_decode_packet(const uint8_t* in, uint8_t* out) {
 // the coder minus the framed body length in bits.  The decoder
 // legitimately reads up to 16 lookahead bits past the written stream
 // (the primed 16-bit code window; clean slack measured 7..13 bits, same
-// math as the TPU kernel's overrun flag, pallas_decode.check_debug_flags)
+// math as the device decode's overrun flag, coder_op.check_debug_flags)
 // — a delta beyond +16 is the detectable signature of a corrupt
 // well-framed packet.  Used by the CLI `v --deep` verifier.
 long tg_decode_packet_delta(const uint8_t* in, uint8_t* out) {

@@ -2,10 +2,11 @@
 
 pack_batch loops over lanes in Python — intentional: this module exists to
 turn the XLA scan's emission descriptors into golden bitstreams for tests
-and readable spec, not to serve production traffic (that is the Pallas
-kernels' job; the host production path is the native golden codec).
+and readable spec, not to serve production traffic (that is the coder
+op's job, ops/coder_op.py; the host production path is the native golden
+codec).
 
-The vectorized encoders (XLA scan and Pallas kernel fallback path) emit, per
+The vectorized XLA scan encoder emits, per
 symbol step, a fixed-size *descriptor* of the variable-length bit emission
 instead of writing bits serially (SURVEY.md §7.4 item 1):
 

@@ -5,7 +5,7 @@ reference runs per CUDA thread (jiahansu/GPUAR src/gpuar_kernel.cu: encode
 arCompress :487-531, decode arDecompress :848-892, renormalisation
 writeEncodedBits :321-367 / readEncodedBits :787-836, tail flush
 writeRemaining :379-388 + writeClose :430-439).  Everything else in this
-project — the C++ host backend and the JAX/Pallas TPU kernels — is tested
+project — the C++ host backend and the device coder op — is tested
 for bit-equality against this module.
 
 Packet layout (written by the codec itself, src/gpuar_kernel.cu:527-528):

@@ -1,12 +1,13 @@
 """Vectorized JAX (pure-XLA) codec: lax.scan over symbol steps, packets
 batched along the vector axis.
 
-This is the on-device correctness anchor for the Pallas kernels — a
-SPEC/TEST-TIER implementation, not a production path: its output stage
-(ops.bitpack) packs bits in a per-lane host loop, which is fine for
-golden-vector generation and cross-checks but would crawl at production
-batch sizes.  Production traffic goes through ops.pallas_encode /
-ops.pallas_decode (TPU) or the native golden codec (host).  The coder
+This is the plain JAX version of the coder op (ops/coder_op.py) — a
+SPEC/TEST-TIER implementation and the timing baseline for the CUDA
+kernels, not a production path: its output stage (ops.bitpack) packs bits
+in a per-lane host loop, which is fine for golden-vector generation and
+cross-checks but would crawl at production batch sizes.  Production
+traffic goes through the coder op (device) or the native golden codec
+(host).  The coder
 state and model updates follow the reference
 semantics exactly (jiahansu/GPUAR src/gpuar_kernel.cu applySymbolRange
 :256-299), but the reference's bit-by-bit renormalisation loops

@@ -1,9 +1,9 @@
-"""Multi-host (pod-slice) compression: per-host file ranges, metadata
+"""Multi-process compression: per-process file ranges, metadata
 all-gather, ordered parallel splice.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §2.2.4);
-this module is the distributed component the TPU rebuild adds on top of
-the single-host MeshCodec.  The design (SURVEY.md §5 "Distributed
+this module is the distributed component this rebuild adds on top of the
+single-process MeshCodec.  The design (SURVEY.md §5 "Distributed
 communication backend"):
 
   * compression needs zero cross-chip communication — packets are
@@ -11,7 +11,7 @@ communication backend"):
   * each host reads a packet-aligned byte range of the input and encodes
     it on its local devices;
   * the only communication is metadata: every host's compressed byte
-    count is all-gathered (a few bytes per host over ICI/DCN), an
+    count is all-gathered (a few bytes per host), an
     exclusive scan turns counts into file offsets, and every host
     `pwrite`s its spliced body at its offset;
   * host 0 writes the 20-byte .gip header once the totals are known.
@@ -25,7 +25,8 @@ hosts; every host decodes its span and writes at its walked raw offset.
 All collective plumbing is isolated behind ``_allgather_sizes`` so the
 range/offset/index math is pure and unit-testable without a pod
 (tests/test_distributed.py); on a single process the module degrades to
-the local pipeline exactly.
+the local pipeline exactly.  "Host" below means one process, which on a
+GPU host drives one card.
 """
 
 from __future__ import annotations
@@ -41,25 +42,41 @@ from gpuar_tpu.config import (
     PACKET_HEADER_LENGTH,
     UNCOMPRESSED_PACKET_SIZE,
 )
-from gpuar_tpu.pipeline import _hull_hint, _splice
+from gpuar_tpu.pipeline import _splice
 from gpuar_tpu.utils.stats import CompressionInfo, ProgressMonitor, SplitTimer
 
 
-def initialize(coordinator_address: str | None = None,
-               num_processes: int | None = None,
-               process_id: int | None = None) -> None:
-    """Bring up the JAX multi-host runtime (jax.distributed.initialize).
+def initialize(coordinator_address: str | None, num_processes: int | None,
+               process_id: int | None,
+               local_device_id: int | None = None) -> None:
+    """Bring up the JAX multi-process runtime (jax.distributed.initialize).
 
-    On TPU pods the arguments are discovered from the environment; passing
-    them explicitly supports manual clusters.  Safe to skip entirely for
-    single-host runs.
+    Nothing tells JAX of the cluster, so all three of the coordinator
+    address (``host:port``), the process count and this process's id are
+    required; the address may also come from JAX_COORDINATOR_ADDRESS, which
+    the installed ``jax.distributed.initialize`` reads itself.  Cluster
+    auto-detection stays off.  The process takes one local card:
+    ``local_device_id``, by default its process id (one process per card
+    of one host).  Raises on any failure; there is no single-process
+    fallback.
     """
     import jax
 
+    coordinator_address = (coordinator_address
+                           or os.environ.get("JAX_COORDINATOR_ADDRESS"))
+    missing = [name for name, v in (
+        ("coordinator address", coordinator_address),
+        ("process count", num_processes), ("process id", process_id))
+        if v is None]
+    if missing:
+        raise ValueError(f"multi-process run needs its {', '.join(missing)}")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=[process_id if local_device_id is None
+                          else local_device_id],
+        cluster_detection_method="deactivate",
     )
 
 
@@ -522,18 +539,12 @@ class DistributedCompressor:
                 blob_geom = getattr(self.backend,
                                     "decode_blob_geometry", None)
                 pending = None  # (handle, raw_sizes, raw_lo, raw_hi)
-                # Adaptive hull routing from decoded content (see
-                # pipeline._hull_hint); None until the first owned
-                # segment lands.
-                hint = {"hull": None}
 
                 def _drain(p):
                     h, raw_sizes, raw_lo, raw_hi = p
                     with process:
                         raw = self.backend.decode_fetch(h)
                         piece = _splice(raw, raw_sizes)
-                        if blob_geom is not None:
-                            hint["hull"] = _hull_hint(raw)
                     with io:
                         # Raw offsets come from the walked index, so
                         # short non-final packets land right.
@@ -565,8 +576,7 @@ class DistributedCompressor:
                             with process:
                                 handle = (
                                     self.backend.decode_submit_blob(
-                                        ublob, roff, clen, raw_sizes,
-                                        hull_hint=hint["hull"]),
+                                        ublob, roff, clen, raw_sizes),
                                     raw_sizes, int(seg[1, 0]),
                                     int(seg[1, -1]))
                         else:

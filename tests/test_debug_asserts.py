@@ -1,4 +1,4 @@
-"""Flag-gated kernel debug checks (reference -D_DEBUG parity).
+"""The debug decode's checks (reference -D_DEBUG parity).
 
 The reference's debug build asserts on coder range inversion and failed
 symbol search (src/gpuar_kernel.cu:290-298,758-762).  Those invariants
@@ -10,14 +10,31 @@ corrupt-but-well-framed data that release mode (like the reference's)
 decodes to silent garbage.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from gpuar_tpu import container, native
-from gpuar_tpu.ops.pallas_decode import decode_batch_pallas
+from gpuar_tpu.ops import coder_op
 
 PSIZE = 512
-STRIDE = 1088  # out_words * 4 for 512-byte packets
+STRIDE = 1088  # any whole number of 16-byte groups holds a packet row
+
+
+def decode_batch(packets, sizes, debug=False):
+    """Decode fixed-stride packets through the op; with debug, raise
+    ContainerError naming corrupt packets."""
+    out = coder_op.decode(jnp.asarray(packets.view(np.int32)),
+                          jnp.asarray(sizes[None]), packet_size=PSIZE,
+                          debug=debug)
+    if debug:
+        out, flags = out
+        comp_len = (packets[:, 0].astype(np.int64)
+                    | (packets[:, 1].astype(np.int64) << 8))
+        coder_op.check_debug_flags(np.asarray(flags), comp_len,
+                                   packets.shape[0])
+    return np.asarray(out).view(np.uint8)
 
 
 def _packets(rows):
@@ -35,8 +52,7 @@ def test_debug_decode_clean_batch_passes(rng):
     data[3, :256] = 65
     packets, _ = _packets(data)
     sizes = np.full(4, PSIZE, np.int32)
-    out = decode_batch_pallas(packets, sizes, tile=8, packet_size=PSIZE,
-                              interpret=True, debug=True)
+    out = decode_batch(packets, sizes, debug=True)
     assert np.array_equal(out, data)
 
 
@@ -52,29 +68,25 @@ def test_debug_decode_flags_corrupt_packet(rng):
     corrupt[1, 4: lens[1]] = rng.integers(0, 256, lens[1] - 4, np.uint8)
 
     # Release mode: same as the reference without -D_DEBUG — garbage out.
-    out = decode_batch_pallas(corrupt, sizes, tile=8, packet_size=PSIZE,
-                              interpret=True)
+    out = decode_batch(corrupt, sizes)
     assert np.array_equal(out[0], data[0])
     assert not np.array_equal(out[1], data[1])
 
     with pytest.raises(container.ContainerError, match=r"packets \[1\]"):
-        decode_batch_pallas(corrupt, sizes, tile=8, packet_size=PSIZE,
-                            interpret=True, debug=True)
+        decode_batch(corrupt, sizes, debug=True)
 
 
 def test_mesh_debug_decode_flags_corrupt_packet(rng):
     """The debug variant works through the sharded MeshCodec path (what
     TPUCompressor(debug=True) / the CLI --debug flag use)."""
-    import jax
-
     from gpuar_tpu.parallel.mesh import MeshCodec, make_mesh
 
     data = np.zeros((2, PSIZE), np.uint8)
     data[0] = rng.integers(0, 256, PSIZE, np.uint8)
     packets, lens = _packets(data)
     sizes = np.full(2, PSIZE, np.int32)
-    codec = MeshCodec(make_mesh(jax.devices()[:2]), tile=8,
-                      packet_size=PSIZE, debug=True)
+    codec = MeshCodec(make_mesh(jax.devices()[:2]), packet_size=PSIZE,
+                      debug=True)
     # Clean batch decodes fine.
     out = codec.decode(packets, sizes)
     assert np.array_equal(np.asarray(out), data)
@@ -121,16 +133,8 @@ def test_coder_invariants_hold_for_arbitrary_streams(rng):
     sizes = np.full(2, PSIZE, np.int32)
     # Must not raise for the INVARIANT flags; the overrun check may or
     # may not fire depending on how fast the noise consumes bits, so
-    # inspect the raw flags instead of decode_batch_pallas's raise.
-    import jax.numpy as jnp
-
-    from gpuar_tpu.ops import pallas_decode as D
-
-    og, ow = D.out_geometry(PSIZE)
-    p32, n_pad = D.pad_packets32(packets, 8, ow)
-    sz = np.zeros((1, n_pad), np.int32)
-    sz[0, :2] = sizes
-    _, flags = D._decode_call(jnp.asarray(p32), jnp.asarray(sz), tile=8,
-                              packet_size=PSIZE, out_groups=og,
-                              interpret=True, debug=True)
+    # inspect the raw flags instead of decode_batch's raise.
+    _, flags = coder_op.decode(jnp.asarray(packets.view(np.int32)),
+                               jnp.asarray(sizes[None]), packet_size=PSIZE,
+                               debug=True)
     assert not np.asarray(flags)[0, :2].any()

@@ -6,7 +6,7 @@ import pytest
 from gpuar_tpu import native
 from gpuar_tpu.config import PACKET_HEADER_LENGTH, UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu.ops import golden
-from tests.conftest import fixture_corpora
+from conftest import fixture_corpora
 
 
 def packets_of(data: bytes):

@@ -1,5 +1,5 @@
-"""True multi-process pod-slice validation: two jax.distributed processes
-over a localhost coordinator run DistributedCompressor end-to-end, and the
+"""True multi-process validation: jax.distributed processes over a
+localhost coordinator run DistributedCompressor end-to-end, and the
 spliced output must be byte-identical to the single-process pipeline.
 
 This exercises the real collectives (process_allgather, barriers,
@@ -56,7 +56,7 @@ _WORKER_DEVICE = textwrap.dedent("""
     from gpuar_tpu.parallel.distributed import DistributedCompressor
     from gpuar_tpu.parallel.runner import TPUCompressor
 
-    backend = TPUCompressor(tile=8, packet_size=64, super_batch_packets=16)
+    backend = TPUCompressor(packet_size=64, super_batch_packets=64)
     assert backend.codec.n_devices == 2
     d = DistributedCompressor(backend=backend)
     d.compress(f'{tmp}/in.bin', f'{tmp}/out.gip')
@@ -108,8 +108,8 @@ def test_pod_slice_processes(tmp_path, rng, world):
 
 def test_pod_slice_device_backend(tmp_path, rng):
     """World-2 run whose backend is the TPUCompressor/MeshCodec device
-    path (VERDICT r4 next #5): per-process meshes over two VIRTUAL local
-    CPU devices each, interpret-mode kernels at tiny packet geometry.
+    path: per-process meshes over two VIRTUAL local CPU devices each, the
+    CPU build of the coder op at tiny packet geometry.
     Covers the per-process local-device mesh construction seam inside a
     jax.distributed run (parallel/runner.py); output must be
     byte-identical to the single-process device pipeline."""
@@ -145,7 +145,67 @@ def test_pod_slice_device_backend(tmp_path, rng):
     from gpuar_tpu.parallel.runner import TPUCompressor
 
     ref = tmp_path / "ref.gip"
-    TPUCompressor(tile=8, packet_size=64,
-                  super_batch_packets=16).compress(
+    TPUCompressor(packet_size=64,
+                  super_batch_packets=64).compress(
         tmp_path / "in.bin", ref)
     assert (tmp_path / "out.gip").read_bytes() == ref.read_bytes()
+
+
+def _run_cli_world(tmp_path, world, argv):
+    port = str(_free_port())
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    env.pop("JAX_COORDINATOR_ADDRESS", None)
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "gpuar_tpu.cli", *argv, "--multihost",
+             f"--coordinator=localhost:{port}", f"--num-processes={world}",
+             f"--process-id={r}", "--nointeractive"],
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        for r in range(world)
+    ]
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=240)
+            assert p.returncode == 0, out[-2000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+
+def test_cli_multihost_processes(tmp_path, rng):
+    """The CLI's --multihost path: every process gets its coordinator,
+    count and id from flags, takes its own device, and the archive equals
+    the --host archive byte for byte."""
+    data = rng.integers(0, 256, 5 * P + 99, np.uint8).tobytes()
+    src, gip, back = tmp_path / "in.bin", tmp_path / "m.gip", \
+        tmp_path / "back.bin"
+    src.write_bytes(data)
+    _run_cli_world(tmp_path, 2, ["c", f"--in={src}", f"--out={gip}",
+                                 "--batch-packets=64"])
+    ref = tmp_path / "ref.gip"
+    HostCompressor().compress(src, ref)
+    assert gip.read_bytes() == ref.read_bytes()
+    _run_cli_world(tmp_path, 2, ["d", f"--in={gip}", f"--out={back}",
+                                 "--batch-packets=64"])
+    assert back.read_bytes() == data
+
+
+def test_cli_multihost_needs_coordinator(tmp_path):
+    """Without a coordinator, count and id, --multihost stops with an error
+    instead of carrying on as a single process."""
+    src = tmp_path / "in.bin"
+    src.write_bytes(b"x" * 1000)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("JAX_COORDINATOR_ADDRESS", None)
+    r = subprocess.run(
+        [sys.executable, "-m", "gpuar_tpu.cli", "c", f"--in={src}",
+         f"--out={tmp_path / 'x.gip'}", "--multihost", "--nointeractive"],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 1
+    assert "--coordinator" in r.stderr
+    assert not (tmp_path / "x.gip").exists()

@@ -19,8 +19,6 @@ our equivalent guarantee is bit-equality across build variants.
 """
 
 import ctypes
-import hashlib
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +31,6 @@ from gpuar_tpu.config import (
 )
 
 _SRC = Path(native.__file__).with_name("golden.cpp")
-_BUILD = Path(native.__file__).with_name("_build")
 
 _ARMS = {
     "base": ["-march=x86-64"],
@@ -45,19 +42,9 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _build_arm(name: str, flags: list[str]) -> Path:
-    tag = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = _BUILD / f"libtpuar_golden_{name}_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD.mkdir(exist_ok=True)
-    tmp = out.with_suffix(".so.tmp")
-    subprocess.run(
-        ["g++", "-std=c++17", "-O3", *flags, "-fPIC", "-shared",
-         str(_SRC), "-o", str(tmp)],
-        check=True, capture_output=True)
-    tmp.replace(out)
-    return out
+    return native.build_library(
+        f"tpuar_golden_{name}", [_SRC],
+        ["g++", "-std=c++17", "-O3", *flags, "-fPIC", "-shared"])
 
 
 def _load_arm(path: Path) -> ctypes.CDLL:
@@ -109,7 +96,7 @@ def _cases(rng) -> list[np.ndarray]:
 def test_portable_build_bit_equal(arm):
     try:
         lib = _load_arm(_build_arm(arm, _ARMS[arm]))
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+    except (RuntimeError, FileNotFoundError) as e:
         pytest.skip(f"cannot build portable arm {arm}: {e}")
     default = native.load()
     rng = np.random.default_rng(0xA11CE)

@@ -1,25 +1,25 @@
-"""Pallas decode kernel vs golden (interpret mode on CPU)."""
+"""Decode through the coder op vs golden-encoded packets (CPU build)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from gpuar_tpu import native
-from gpuar_tpu.ops import pallas_decode
-from gpuar_tpu.ops.pallas_encode import out_geometry
+from gpuar_tpu.ops import coder_op
 
 
-def roundtrip(data, sizes, packet_size, tile=8):
+def roundtrip(data, sizes, packet_size):
     n = data.shape[0]
     enc = [native.encode_packet(data[i, : sizes[i]].tobytes()) for i in range(n)]
-    _, out_words = out_geometry(packet_size)
-    pk = np.zeros((n, out_words * 4), np.uint8)
+    pk = np.zeros((n, coder_op.out_words(packet_size) * 4), np.uint8)
     for i, e in enumerate(enc):
         pk[i, : len(e)] = np.frombuffer(e, np.uint8)
-    out = pallas_decode.decode_batch_pallas(
-        pk, sizes, tile=tile, packet_size=packet_size, interpret=True
-    )
+    out = jax.jit(lambda r, s: coder_op.decode(r, s, packet_size=packet_size))(
+        jnp.asarray(pk.view(np.int32)), jnp.asarray(sizes[None]))
+    out = np.asarray(out).view(np.uint8)
     for i in range(n):
         assert out[i, : sizes[i]].tobytes() == data[i, : sizes[i]].tobytes(), \
-            f"lane {i} (size {sizes[i]})"
+            f"packet {i} (size {sizes[i]})"
 
 
 def test_decode_random(rng):

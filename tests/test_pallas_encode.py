@@ -1,26 +1,24 @@
-"""Pallas encode kernel vs golden codec (interpret mode on CPU mesh).
+"""Encode through the coder op vs the golden codec (CPU build of the op).
 
-Real-TPU bit-equality is exercised by bench.py / the CLI path; these tests
-run the same kernel code through the Pallas interpreter on small packet
-geometries (the kernel is parametric in packet size), covering the
-emission machinery: ring flushes, dumps, underflow runs, ragged tails.
+The op is parametric in packet size, so small geometries cover the
+emission machinery quickly: word flushes, underflow runs, ragged tails.
 """
 
 import numpy as np
-import pytest
 
 from gpuar_tpu import native
-from gpuar_tpu.ops import pallas_encode
+from gpuar_tpu.parallel.mesh import MeshCodec, make_mesh
 
 
-def check(data, sizes, packet_size, tile=8):
-    pk, ln = pallas_encode.encode_batch_pallas(
-        data, sizes, tile=tile, packet_size=packet_size, interpret=True
-    )
+def check(data, sizes, packet_size):
+    import jax
+
+    codec = MeshCodec(make_mesh(jax.devices()[:1]), packet_size=packet_size)
+    pk, ln = codec.encode(data, sizes)
     for i in range(data.shape[0]):
         exp = native.encode_packet(data[i, : sizes[i]].tobytes())
         got = pk[i, : ln[i]].tobytes()
-        assert got == exp, f"lane {i} (size {sizes[i]}) diverged"
+        assert got == exp, f"packet {i} (size {sizes[i]}) diverged"
 
 
 def test_random_small_packets(rng):
@@ -33,8 +31,8 @@ def test_random_small_packets(rng):
 
 
 def test_multi_chunk_and_tiles(rng):
-    # packet > CHUNK_WORDS*4 would need real chunking; emulate with the
-    # chunk path by using 2 tiles and mixed content classes.
+    # Several content classes in one batch, including empty and one-byte
+    # packets.
     P = 128
     data = np.zeros((16, P), np.uint8)
     data[0] = 0                      # all zeros: heavy compression+underflow
@@ -43,9 +41,11 @@ def test_multi_chunk_and_tiles(rng):
     data[3, :] = np.arange(P) % 256  # cycling
     data[4:] = rng.integers(0, 4, (12, P), np.uint8)  # skewed
     sizes = np.full(16, P, np.int32)
-    sizes[5] = 0                     # empty packet lane
+    sizes[5] = 0                     # empty packet
     sizes[6] = 1
-    check(data, sizes, P, tile=8)
+    data[5] = 0
+    data[6, 1:] = 0
+    check(data, sizes, P)
 
 
 def test_underflow_run_path(rng):
@@ -57,149 +57,3 @@ def test_underflow_run_path(rng):
     data[2:] = rng.integers(126, 130, (6, P), np.uint8)
     sizes = np.full(8, P, np.int32)
     check(data, sizes, P)
-
-
-def test_fixup_errors_replaces_flagged_lanes(rng):
-    """Lanes flagged by the kernel (over-long underflow runs / ring guard)
-    must be transparently re-encoded with the golden codec."""
-    P = 64
-    data = rng.integers(0, 256, (4, P), np.uint8)
-    sizes = np.full(4, P, np.int32)
-    stride = 256
-    packets = rng.integers(0, 256, (4, stride), np.uint8)  # garbage
-    lengths = np.zeros(4, np.int64)
-    errs = np.array([1, 0, 1, 0], np.int32)
-    before = packets.copy()
-
-    pallas_encode.fixup_errors(packets, lengths, errs, data, sizes)
-
-    for i in (0, 2):
-        exp = native.encode_packet(data[i].tobytes())
-        assert packets[i, : len(exp)].tobytes() == exp
-        assert lengths[i] == len(exp)
-    for i in (1, 3):
-        assert np.array_equal(packets[i], before[i])
-        assert lengths[i] == 0
-
-
-def _adversarial_underflow_packet(n=8192):
-    """Greedy adversary against the live coder state: each step picks a
-    symbol whose coded interval straddles the midpoint tightly, so the
-    pending-underflow run grows past the kernel's MAX_RUN_BITS budget
-    (reaches ~133 consecutive pending bits)."""
-    U16 = 0xFFFF
-    C = np.arange(257, dtype=np.int64)
-    lower, upper, cum, under = 0, U16, 256, 0
-    syms = []
-    for _ in range(n):
-        span = upper - lower + 1
-        lo_all = lower + C[:-1] * span // cum
-        up_all = lower + C[1:] * span // cum - 1
-        ok = ((lo_all >= 0x4000) & (lo_all < 0x8000)
-              & (up_all >= 0x8000) & (up_all < 0xC000))
-        s = int(np.argmax(ok)) if ok.any() and under < 150 else 0
-        syms.append(s)
-        lo2, up2 = int(lo_all[s]) & U16, int(up_all[s]) & U16
-        C[s + 1:] += 1
-        cum += 1
-        while True:
-            if (lo2 ^ up2) & 0x8000 == 0:
-                under = 0
-                lo2 = (lo2 << 1) & U16
-                up2 = ((up2 << 1) | 1) & U16
-            elif (lo2 & 0x4000) and not (up2 & 0x4000):
-                under += 1
-                lo2 = (lo2 << 1) & 0x7FFF
-                up2 = (((up2 << 1) | 1) | 0x8000) & U16
-            else:
-                break
-        lower, upper = lo2, up2
-    return np.array(syms, np.uint8)
-
-
-def test_underflow_error_flag_and_fixup(rng):
-    """A >96-bit pending-underflow run must raise the kernel's error flag,
-    and encode_batch_pallas must transparently re-encode that lane with
-    the golden codec, keeping the whole batch bit-exact."""
-    import jax.numpy as jnp
-
-    data = np.zeros((8, 8192), np.uint8)
-    data[0] = _adversarial_underflow_packet()
-    data[1:] = rng.integers(0, 256, (7, 8192), np.uint8)
-    sizes = np.full(8, 8192, np.int32)
-
-    og, _ = pallas_encode.out_geometry(8192)
-    words = np.zeros((8, 2048), np.int32)
-    words[:] = data.view(np.int32)
-    sz = np.full((1, 8), 8192, np.int32)
-    _, _, errs = pallas_encode._encode_call(
-        jnp.asarray(words), jnp.asarray(sz),
-        tile=8, packet_size=8192, out_groups=og, interpret=True)
-    assert np.asarray(errs)[0, 0] == 1, "adversarial lane must flag"
-
-    pk, ln = pallas_encode.encode_batch_pallas(
-        data, sizes, tile=8, interpret=True)
-    for i in range(8):
-        exp = native.encode_packet(data[i].tobytes())
-        assert pk[i, : ln[i]].tobytes() == exp, f"lane {i} diverged"
-
-
-def _antimodel_packet(rng, n):
-    """Max-emission adversary: always code a least-frequent symbol, so
-    every step costs ~log2(cumprob) bits (up to ~13.7 by packet end) —
-    the sustained worst case for ring live span between the kernel's
-    scheduled dumps (DUMP_WORDS cadence, src ring comment in
-    ops/pallas_encode.py).  Unlike the underflow adversary this content
-    must NOT flag: expansion is bounded by EXTRA_COMPRESSED_SIZE slack
-    (src/gpu.h:8,12 analog in config.py)."""
-    counts = np.ones(256, np.int64)
-    out = np.empty(n, np.uint8)
-    for i in range(n):
-        least = np.flatnonzero(counts == counts.min())
-        s = int(rng.choice(least))
-        out[i] = s
-        counts[s] += 1
-    return out
-
-
-def test_ring_pressure_fuzz_dump_cadence(rng):
-    """Fresh-seed re-gate of the DUMP_WORDS=4 adoption (round 4): the
-    longer dump cadence raises the ring's live span, so fuzz the
-    highest-emission content classes through the production cadence in
-    interpret mode and demand byte-equality with the golden codec
-    (flagged lanes go through the production fixup inside
-    encode_batch_pallas).  Families: anti-model max-rate, uniform
-    random, midpoint straddle alternation, dense staircases."""
-    P = 512
-    lanes = []
-    lanes.append(_antimodel_packet(rng, P))
-    lanes.append(rng.integers(0, 256, P, np.uint8))
-    lanes.append(np.tile(np.array([128, 127], np.uint8), P // 2))
-    lanes.append((np.arange(P) * 7 % 256).astype(np.uint8))
-    lanes.append(np.tile(np.array([255, 0, 254, 1], np.uint8), P // 4))
-    for _ in range(3):
-        conc = 10.0 ** -rng.uniform(0, 2)
-        p = rng.dirichlet(np.full(256, conc))
-        lanes.append(rng.choice(256, P, p=p).astype(np.uint8))
-    data = np.stack(lanes)
-    sizes = np.full(len(lanes), P, np.int32)
-    sizes[-1] = P - 3  # ragged tail under max pressure
-    data[-1, P - 3:] = 0
-
-    pk, ln = pallas_encode.encode_batch_pallas(
-        data, sizes, tile=8, packet_size=P, interpret=True)
-    for i in range(len(lanes)):
-        exp = native.encode_packet(data[i, : sizes[i]].tobytes())
-        assert pk[i, : ln[i]].tobytes() == exp, f"lane {i} diverged"
-
-    # Decode side: the same packets must round-trip through BOTH decode
-    # kernel variants — the speculative hull bet and the full-range
-    # route (mesh routes incompressible batches to hull=False,
-    # PROBES_r4.md hull A/B).
-    from gpuar_tpu.ops import pallas_decode
-    for hull in (True, False):
-        back = pallas_decode.decode_batch_pallas(
-            pk, sizes, tile=8, packet_size=P, interpret=True, hull=hull)
-        for i in range(len(lanes)):
-            assert np.array_equal(back[i, : sizes[i]],
-                                  data[i, : sizes[i]]), (hull, i)

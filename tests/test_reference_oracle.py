@@ -21,7 +21,8 @@ from gpuar_tpu.config import UNCOMPRESSED_PACKET_SIZE as P
 from gpuar_tpu.native import reference_oracle as ro
 from gpuar_tpu.pipeline import HostCompressor
 
-from tests.test_pallas_encode import _adversarial_underflow_packet
+from benchmarks.corpora import adversarial_underflow_packet as \
+    _adversarial_underflow_packet
 
 FIXTURE = Path(__file__).parent / "fixtures" / "reference_written.gip"
 

@@ -2,8 +2,8 @@
 reference offers only the manual md5 procedure, README.md:24-29).
 
 Structural checks ride the container walk; --deep decodes each packet on
-the host codec and applies the kernel's bitstream-overrun rule
-(pallas_decode.check_debug_flags; native tg_decode_packet_delta)."""
+the host codec and applies the device decode's bitstream-overrun rule
+(coder_op.check_debug_flags; native tg_decode_packet_delta)."""
 
 import numpy as np
 import pytest

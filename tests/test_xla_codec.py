@@ -5,7 +5,7 @@ import numpy as np
 from gpuar_tpu import native
 from gpuar_tpu.config import COMPRESSED_PACKET_SIZE, UNCOMPRESSED_PACKET_SIZE
 from gpuar_tpu.ops import xla_codec
-from tests.conftest import fixture_corpora
+from conftest import fixture_corpora
 
 P = UNCOMPRESSED_PACKET_SIZE
 
